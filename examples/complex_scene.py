@@ -20,9 +20,11 @@ def main():
     from mini3dgs_tpu.data.dataset import RandomDataset
     from mini3dgs_tpu.ops.renderer import RenderSettings, render
     from mini3dgs_tpu.train.trainer import GaussianTrainer
+    from mini3dgs_tpu.utils.compile_cache import enable_compile_cache
     from mini3dgs_tpu.utils.io import save_image
 
-    use_pallas = jax.default_backend() == "tpu"
+    enable_compile_cache()
+    use_pallas = True   # raster kernels (interpreted on a CPU)
     size = 128
     cfg = TrainingConfig(
         capacity=8192, image_height=size, image_width=size,

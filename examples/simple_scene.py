@@ -21,9 +21,11 @@ def main():
     from mini3dgs_tpu.core.gaussians import create_from_random
     from mini3dgs_tpu.ops.renderer import RenderSettings, render
     from mini3dgs_tpu.train.trainer import create_train_state, make_train_step
+    from mini3dgs_tpu.utils.compile_cache import enable_compile_cache
     from mini3dgs_tpu.utils.io import save_image
 
-    use_pallas = jax.default_backend() == "tpu"
+    enable_compile_cache()
+    use_pallas = True   # raster kernels (interpreted on a CPU)
     cfg = TrainingConfig(capacity=4096, image_height=256, image_width=256,
                          use_pallas=use_pallas, max_instances=2 ** 16)
     settings = RenderSettings(image_height=256, image_width=256,

@@ -2,21 +2,20 @@
 
 Mirrors the reference surface (`/root/reference/config/config.py:33-95` and
 `config/default.yaml:1-51`) with the nested-YAML mapping fixed (reference bug
-B15: `TrainingConfig(**nested)` raised TypeError) and TPU-specific fields added
-(capacity/mesh/kernel knobs).  No import-time side effects (reference bug B14).
+B15: `TrainingConfig(**nested)` raised TypeError) and fields of this system
+added (capacity/mesh/kernel knobs).  No import-time side effects (reference
+bug B14).  The YAML reader is a small one for the subset `configs/*.yaml`
+use (`parse_yaml`), so loading a config needs no third-party package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import re
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import List, Optional
-
-try:  # PyYAML is a soft dependency, as in the reference.
-    import yaml
-except Exception:  # pragma: no cover
-    yaml = None
 
 
 @dataclass
@@ -101,10 +100,10 @@ class TrainingConfig:
     use_exposure: bool = False
     exposure_lr: float = 1e-3
 
-    # -- TPU-native knobs (new; no reference analog) --
+    # -- kernel path and parallelism knobs (new; no reference analog) --
     capacity: int = 2 ** 17          # Gaussian slot-pool capacity (static shape under jit)
     max_instances: int = 2 ** 20     # capacity of the (tile, depth)-key instance buffer
-    gaussian_chunk: int = 256        # Gaussians per VMEM chunk in the raster kernel
+    gaussian_chunk: int = 256        # padding granule of the instance stream length
     max_dup_per_axis: int = 0        # 0 = exact bound from radius_max; >0 shrinks the candidate sort
     large_capacity: int = 0          # two-level binning's large-splat (span > 2x2) pool; 0 = capacity/8
     mesh_data: int = 1               # camera/data-parallel mesh axis size
@@ -123,25 +122,23 @@ class TrainingConfig:
     # K-step on-device training loop: 0 = auto (gcd of every event cadence,
     # so densify/prune/reset/log/eval/save land on window boundaries),
     # 1 = one host dispatch per step (the mesh paths always use 1).
-    # DEFAULT 1: measured on chip (PERF.md round-4), the fori_loop body
-    # runs ~1.4x slower per step than separate dispatches at bench scale
-    # (the amortized ~10 ms dispatch does not pay for the loop-body
-    # slowdown); opt in with 0 on runtimes where dispatch dominates.
+    # Default 1; opt in with 0 where host dispatch idles the device (not
+    # measured on a GPU yet).
     steps_per_call: int = 1
     # K-loop camera staging budget: the loop keeps the FULL train-camera
     # stack (incl. target images) device-resident; above this many MB the
-    # trainer falls back to per-step dispatch instead of risking HBM OOM.
+    # trainer falls back to per-step dispatch instead of risking device OOM.
     loop_stage_budget_mb: int = 2048
     # Slot-compact the pool (and Adam moments) once the densify window
     # closes (population frozen; growth headroom becomes pure per-capacity
-    # stage tax — round-5 trace: ~17 ms/step at 2^19 slots 32% occupied).
+    # stage tax).
     # Fires at most once, only if it saves >= 25% of the pool.
     compact_after_densify: bool = True
-    use_pallas: bool = True          # Pallas kernels vs pure-XLA golden path
+    use_pallas: bool = True          # raster kernels vs pure-XLA golden path
     dtype: str = "float32"
 
     # -- system (reference config.py:67, default.yaml system:) --
-    device: str = "tpu"
+    device: str = "gpu"
     seed: int = 0
 
 
@@ -236,24 +233,116 @@ def _flatten_yaml(data: dict) -> dict:
     return flat
 
 
+# Implicit scalar types as YAML 1.1 (and so PyYAML's safe_load) resolves
+# them: "1e-5" without a dot stays a string, "yes"/"off" are booleans.
+_BOOL = {v: True for v in ("yes", "Yes", "YES", "true", "True", "TRUE",
+                            "on", "On", "ON")}
+_BOOL.update({v: False for v in ("no", "No", "NO", "false", "False",
+                                  "FALSE", "off", "Off", "OFF")})
+_NULL = ("", "~", "null", "Null", "NULL")
+_INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
+_INF = re.compile(r"([-+]?)\.(inf|Inf|INF)$")
+_NAN = re.compile(r"\.(nan|NaN|NAN)$")
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _scalar(text: str):
+    text = text.strip()
+    if text[:1] == '"':
+        return json.loads(text)
+    if text[:1] == "'":
+        return text[1:-1].replace("''", "'")
+    if text[:1] == "[":
+        inner = text[1:-1].strip()
+        return [_scalar(v) for v in inner.split(",")] if inner else []
+    if text in _NULL:
+        return None
+    if text in _BOOL:
+        return _BOOL[text]
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _FLOAT.match(text) and text not in (".", "+.", "-."):
+        return float(text.replace("_", ""))
+    m = _INF.match(text)
+    if m:
+        return float(m.group(1) + "inf")
+    if _NAN.match(text):
+        return float("nan")
+    return text
+
+
+def parse_yaml(text: str) -> dict:
+    """Parse the YAML subset the configs use: nested block mappings by
+    indentation, plain / quoted scalars, flow lists and comments.  Anything
+    else (block sequences, anchors, multi-line scalars) raises."""
+    root: dict = {}
+    stack = [(-1, root)]                 # (indent, mapping)
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        body = line.strip()
+        key, sep, rest = body.partition(":")
+        if (not sep or body.startswith(("-", "&", "*", "!", "{", "|", ">"))
+                or (rest and not rest[0].isspace())):
+            raise ValueError(f"unsupported YAML at line {n}: {raw!r}")
+        while indent <= stack[-1][0]:
+            stack.pop()
+        mapping = stack[-1][1]
+        key = _scalar(key)
+        if rest.strip():
+            mapping[key] = _scalar(rest)
+        else:                            # a mapping follows (or null)
+            child: dict = {}
+            stack.append((indent, child))
+            mapping[key] = child
+    return _empty_to_none(root)
+
+
+def _empty_to_none(d: dict) -> dict:
+    return {k: (_empty_to_none(v) or None) if isinstance(v, dict) else v
+            for k, v in d.items()}
+
+
+def _dump_scalar(v) -> str:
+    if isinstance(v, bool) or v is None:
+        return {True: "true", False: "false", None: "null"}[v]
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_scalar(x) for x in v) + "]"
+    if isinstance(v, str):
+        return json.dumps(v)
+    return repr(v)
+
+
 class ConfigManager:
     """YAML <-> TrainingConfig (reference `config/config.py:69-95`, B15 fixed)."""
 
     @staticmethod
     def load_from_yaml(config_path: str) -> TrainingConfig:
-        if yaml is None:
-            raise ImportError("PyYAML is not installed")
-        with open(config_path, "r", encoding="utf-8") as f:
-            data = yaml.safe_load(f) or {}
+        data = parse_yaml(Path(config_path).read_text(encoding="utf-8"))
         return TrainingConfig(**_flatten_yaml(data))
 
     @staticmethod
     def save_to_yaml(config: TrainingConfig, config_path: str) -> None:
-        if yaml is None:
-            raise ImportError("PyYAML is not installed")
         Path(config_path).parent.mkdir(parents=True, exist_ok=True)
-        with open(config_path, "w", encoding="utf-8") as f:
-            yaml.safe_dump(dataclasses.asdict(config), f, allow_unicode=True)
+        lines = [f"{k}: {_dump_scalar(v)}"
+                 for k, v in dataclasses.asdict(config).items()]
+        Path(config_path).write_text("\n".join(lines) + "\n",
+                                     encoding="utf-8")
 
     @staticmethod
     def get_default_config() -> TrainingConfig:

@@ -7,7 +7,7 @@ scaling, sigmoid/logit opacity and L2-normalized wxyz quaternions
 (:78-98), covariance Sigma = R diag(sigma^2) R^T (:200-207) and densification
 stat buffers (:29-31).
 
-TPU-first redesign: instead of the reference's concat/boolean-index tensor
+Redesign: instead of the reference's concat/boolean-index tensor
 surgery (gaussian_model.py:181-236), which changes shapes every densify step,
 we keep a *static-capacity* slot pool with an `alive` mask so every train step
 compiles once.  Split/clone/prune are masked scatters into free slots
@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .. import struct
 
 from .transforms import build_covariance_3d, inverse_sigmoid, normalize_quat, quat_to_rotmat
 

@@ -6,15 +6,11 @@ clamped to [0,1] (loss.py:14-39; B11 fixed: forward *returns* mean D-SSIM =
 1 - mean(ssim)); total = (1-lambda)*L1 + lambda*D-SSIM with lambda = 0.2
 (loss.py:56-58).
 
-TPU notes: the separable K=11 blur is an UNROLLED static-slice stencil (one
-fused weighted sum of 11 shifted views per direction), not an XLA
-convolution: f32 convs on TPU lower through bf16 multiply passes and
-layout-shuffled conv forms, which materialized ~11 ms/step of
-bf16<->f32 image round-trips in the trained trainer step (measured,
-docs/artifacts/trace_r5_trainer_postfix.md) against sub-ms of actual
-FLOPs.  The stencil stays in full f32 on the VPU, fuses with the
-SSIM map math, and its VJP is the same stencil transposed.  Everything
-is pure and jit/vjp friendly.
+The separable K=11 blur is an UNROLLED static-slice stencil (one fused
+weighted sum of 11 shifted views per direction), not an XLA convolution:
+it stays in full f32, fuses with the SSIM map math, and its VJP is the same
+stencil transposed (a convolution is the plain alternative; not compared on
+the GPU yet).  Everything is pure and jit/vjp friendly.
 """
 
 from __future__ import annotations
@@ -99,7 +95,7 @@ def gaussian_loss(rendered: jnp.ndarray, target: jnp.ndarray,
 #
 # The 11x11 SSIM window has radius 5, so each image band can compute its rows
 # of the SSIM map EXACTLY from a 5-row halo of (pred, target) exchanged with
-# its neighbors over ICI — 5*W*3*2 floats per boundary instead of the full
+# its neighbors — 5*W*3*2 floats per boundary instead of the full
 # [3,H,W] all_gather (ROADMAP item: SSIM halo exchange).  `lax.ppermute`
 # delivers zeros to devices with no sender, which is exactly the reference's
 # zero 'same'-padding at the global image border (loss.py:25-28 semantics).

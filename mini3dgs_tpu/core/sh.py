@@ -7,7 +7,7 @@ The reference documents full SH<=3 as the feature interface
 interface with the canonical 3DGS hard-coded real-SH basis constants.
 
 Layout: coeffs [..., 16, 3] (band-major: 1 + 3 + 5 + 7 coefficients),
-dirs [..., 3] unit view directions.  Everything is elementwise VPU work
+dirs [..., 3] unit view directions.  Everything is elementwise work
 that XLA fuses into the surrounding projection code.
 """
 

@@ -1,4 +1,4 @@
-"""Rotation / covariance math (JAX), vectorized for the VPU.
+"""Rotation / covariance math (JAX), vectorized.
 
 Reference semantics: `/root/reference/src/utils/math_utils.py:9-34`
 (wxyz quaternion -> rotation matrix with normalize-first, and
@@ -9,18 +9,18 @@ Sigma = R diag(sigma^2) R^T).  The reference's broken isotropic
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+_HI = jax.lax.Precision.HIGHEST  # f32 matmuls would run as TF32 on a GPU
 
 
 def quat_to_rotmat_components(q: jnp.ndarray):
     """[..., 4] wxyz quaternion -> the 9 rotation-matrix entries as a tuple
     of [...] arrays (row-major r00..r22). Normalizes first.
 
-    Kept component-wise so hot paths (ops/projection.py) can stay in pure
-    elementwise VPU math: stacking into [...,3,3] and feeding einsum/dot
-    makes XLA lower batched 3x3 dots through bf16 operand passes and
-    materialize [C,3,3] layout copies (measured: ~8 ms/step of the trained
-    trainer trace, docs/artifacts/trace_r5_trainer_postfix.md)."""
+    Kept component-wise so hot paths (ops/projection.py) stay in pure
+    elementwise math instead of batched 3x3 dots."""
     q = q / (jnp.linalg.norm(q, axis=-1, keepdims=True) + 1e-12)
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     ww, xx, yy, zz = w * w, x * x, y * y, z * z
@@ -42,7 +42,7 @@ def build_covariance_3d(scaling: jnp.ndarray, rotation_q: jnp.ndarray) -> jnp.nd
     R = quat_to_rotmat(rotation_q)
     # R @ diag(s^2) @ R^T without materializing the diag: scale columns of R.
     RS = R * (scaling[..., None, :] ** 2)
-    return jnp.einsum("...ij,...kj->...ik", RS, R)
+    return jnp.einsum("...ij,...kj->...ik", RS, R, precision=_HI)
 
 
 def project_covariance_2d(cov3d: jnp.ndarray, view_rot: jnp.ndarray,
@@ -54,8 +54,10 @@ def project_covariance_2d(cov3d: jnp.ndarray, view_rot: jnp.ndarray,
     renderer inlines (renderer.py:165-183).  cov3d [...,3,3], view_rot [3,3],
     J [...,2,3] -> [...,2,2].
     """
-    cov_cam = jnp.einsum("ij,...jk,lk->...il", view_rot, cov3d, view_rot)
-    return jnp.einsum("...ij,...jk,...lk->...il", J, cov_cam, J)
+    cov_cam = jnp.einsum("ij,...jk,lk->...il", view_rot, cov3d, view_rot,
+                         precision=_HI)
+    return jnp.einsum("...ij,...jk,...lk->...il", J, cov_cam, J,
+                      precision=_HI)
 
 
 def inverse_sigmoid(x: jnp.ndarray) -> jnp.ndarray:

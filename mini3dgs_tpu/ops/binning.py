@@ -8,9 +8,8 @@ ours — duplicates each Gaussian into one *instance per overlapped tile* and
 sorts instances by a composite (tile, depth) key, which makes every tile's
 working set a contiguous depth-ordered slice.
 
-TPU-first design (all static shapes, and **scatter-free**: XLA scatters
-lower to serial loops on TPU, so every placement step below is expressed as
-sort + gather):
+Design (all static shapes, and scatter-free: every placement step below is
+expressed as sort + gather):
   1. Gaussians are depth-sorted once (C elements), so a Gaussian's row index
      IS its depth rank — exactly the reference's stable global depth order.
   2. Each sorted Gaussian emits up to MAX_DUP tile candidates (MAX_DUP is
@@ -19,15 +18,11 @@ sort + gather):
   3. ONE `lax.sort` over the [C * MAX_DUP] candidates compacts and orders
      them: the first n_live slots are the instance buffer, tile-major and
      front-to-back within each tile.
-  4. The stream stays COMPACT (tile starts unaligned): the raster kernels
-     mask boundary-chunk lanes, and their backward resolves the boundary
-     write-sharing with a per-tile head side-buffer.  (An earlier
-     chunk-padded layout was race-free by construction but moved 8x phantom
-     bytes: TPU lane-pads [N,16] f32 arrays to [N,128], so its expansion
-     gather alone cost ~9 ms at the bench size.)
+  4. The stream stays COMPACT (tile starts unaligned): each stream row
+     belongs to exactly one tile, and the raster kernels mask the lanes of a
+     block that fall outside the tile's range.
 
-This sort is the component that becomes a sharded multi-chip sort over ICI in
-the parallel path (each tile-band device sorts only its band's instances).
+In the parallel path each tile-band device sorts only its band's instances.
 """
 
 from __future__ import annotations
@@ -48,9 +43,7 @@ class Binning(NamedTuple):
     """Compact binning result.  The instance stream is the first `n_live`
     rows of the depth-rank array `s_rank`; tile t's instances are rows
     [tile_start[t], tile_start[t] + tile_count[t]) — tile starts are NOT
-    chunk-aligned (the raster kernels mask boundary-chunk lanes instead;
-    a TPU [N,16] array is physically lane-padded to 128, so the former
-    chunk-padded layout moved 8x phantom bytes through every gather)."""
+    chunk-aligned (the raster kernels mask the lanes outside a tile)."""
 
     s_rank: jnp.ndarray        # [K] depth rank of each compact sorted instance
     order: jnp.ndarray         # [C] gaussian id at each depth rank
@@ -64,9 +57,8 @@ class Binning(NamedTuple):
     n_dropped: jnp.ndarray     # instances lost to capacity overflow (TOTAL,
                                # incl. the large-pool share below)
     # Rank-sorted permutation of the stream, precomputed at binning time so
-    # the pack BACKWARD applies it as one lane gather instead of re-sorting
-    # with GRAD_ROWS payload operands (sort cost is linear in operands: the
-    # former 11-op sort cost ~2.3 ms vs ~0.8 for this 2-op one + gather).
+    # the pack BACKWARD applies it as one gather instead of re-sorting with
+    # STREAM_ROWS payload operands.
     rank_perm: jnp.ndarray     # [K] stream position of rank-sorted slot i
     rank_key: jnp.ndarray      # [K] the sorted keys (s_rank; dead tail = C)
     # large-pool (two-level emission C_L compaction) share of n_dropped:
@@ -91,26 +83,18 @@ class Binning(NamedTuple):
         return jnp.where(self.live, self.order[self.s_rank], 0)
 
 
-# Packed-instance row layout (shared with the Pallas kernels):
+# Packed-instance row layout (shared with the raster kernels):
 ROW_X, ROW_Y, ROW_QA, ROW_QB, ROW_QC, ROW_OP = 0, 1, 2, 3, 4, 5
-ROW_R, ROW_G, ROW_B, ROW_DEPTH, ROW_ONE = 6, 7, 8, 9, 10
-N_ROWS = 16  # legacy wide stream: padded for sublane tiling; rows 11..15 unused
-GRAD_ROWS = 10  # rows 0..9 are differentiable caller data; ROW_ONE and up
-#                 are constants by the pack_instances contract (see _pack_bwd)
-# Packed-stream row count: only the GRAD_ROWS data rows ride the pack
-# gathers — ROW_ONE (constant 1) and the zero pads are synthesized inside
-# the raster kernels instead of being gathered and streamed (the pack
-# lane gathers are the step's largest non-floor cost and scale with row
-# count; 10/16 of the work for the same kernels).  The legacy 16-row
-# layout still works end to end (raster_pallas.WIDE_STREAM A/B toggle).
-STREAM_ROWS = GRAD_ROWS
+ROW_R, ROW_G, ROW_B, ROW_DEPTH = 6, 7, 8, 9
+STREAM_ROWS = 10  # all rows are differentiable caller data (see _pack_bwd)
 
 _INT32_MAX = jnp.iinfo(jnp.int32).max
 
 
 def _cumsum_doubling_last(x: jnp.ndarray) -> jnp.ndarray:
     """Inclusive cumulative sum along the last axis via log2(n) shifted adds
-    (full-bandwidth VPU passes; avoids XLA's serial cumsum lowering)."""
+    (written to avoid a serial cumsum lowering; jnp.cumsum is the plain
+    alternative, not compared on the GPU yet)."""
     n = x.shape[-1]
     k = 1
     while k < n:
@@ -213,9 +197,8 @@ def _pad_to(x: jnp.ndarray, L: int, fill=_INT32_MAX) -> jnp.ndarray:
 
 def _depth_order(proj: Projected, counts_gid: jnp.ndarray):
     """Global depth sort of the Gaussians (stable ranks).  `counts_gid`
-    rides along as a payload operand — at [C] scale a sort payload is ~3x
-    cheaper than a separate permutation gather (TPU scalar gathers read a
-    ~4KB tile per element).  Returns (order, counts in rank space)."""
+    rides along as a sort payload operand instead of a separate permutation
+    gather.  Returns (order, counts in rank space)."""
     depth_key = jnp.where(proj.visible, proj.depth, jnp.inf)
     C = depth_key.shape[0]
     _, order, counts_rank = jax.lax.sort(
@@ -225,7 +208,7 @@ def _depth_order(proj: Projected, counts_gid: jnp.ndarray):
 
 def _inverse_permutation(order: jnp.ndarray, *payload):
     """Rank of each gaussian id — inverse of `order`, computed by a small
-    sort (never a scatter; XLA scatters lower serially on TPU).  Extra
+    sort (never a scatter).  Extra
     rank-space `payload` operands come back permuted into gid space for
     the cost of ~nothing (see _depth_order)."""
     C = order.shape[0]
@@ -315,7 +298,7 @@ def _exact_tile_keep(tx, ty, ex, tile_size):
     +1e-6 diagonal stabilizer in projection)."""
     mx, my, qa, qb, qc = ex
     # stationary-point slopes hoisted to ONE per-Gaussian reciprocal each
-    # (a per-candidate divide costs ~10x a multiply on the VPU)
+    # (a per-candidate divide costs several multiplies)
     byc = -qb / jnp.maximum(qc, 1e-12)
     bya = -qb / jnp.maximum(qa, 1e-12)
     x0 = tx * tile_size - _EXACT_MARGIN - mx
@@ -345,10 +328,8 @@ def _grid_counts(tx0, ty0, sx, sy, ex, per_axis, tile_size,
     (same formula, same f32 inputs).  Optional [band_lo, band_hi) tile-row
     window restricts to one image band (the gauss-sharded path).
 
-    LAYOUT: all [dup, N] temporaries keep N on the LANE axis — a [N, 9]
-    f32 array is physically lane-padded to [N, 128] (14x phantom bytes per
-    temporary; measured +3 ms/step at the bench shape), while [9, N] only
-    pads sublanes 9 -> 16."""
+    LAYOUT: all [dup, N] temporaries keep N on the minor (contiguous)
+    axis."""
     MAX_DUP = per_axis * per_axis
     d = jnp.arange(MAX_DUP, dtype=jnp.int32)
     ddx = (d % per_axis)[:, None]
@@ -365,8 +346,8 @@ def _grid_counts(tx0, ty0, sx, sy, ex, per_axis, tile_size,
 
 def _emit_grid(tx0, ty0, sx, sy, rank, C, tiles_x, per_axis,
                ex=None, tile_size=None):
-    """Packed candidate keys [per_axis**2, N] (dup-major; lane-dense over
-    N — see _grid_counts layout note): the row-major tile grid from each
+    """Packed candidate keys [per_axis**2, N] (dup-major; N minor — see
+    _grid_counts layout note): the row-major tile grid from each
     (tx0, ty0) with validity (ddx < sx) & (ddy < sy); key = tile * C +
     depth rank, invalid slots INT32_MAX.  Emission order is free (the key
     embeds the rank), so callers flatten in any order.  With `ex`
@@ -414,7 +395,7 @@ def _emit_two_level(tx0, ty0, sx, sy, ok, rank, C_key, tiles_x, per_axis,
                          ex=ex, tile_size=tile_size)
     # Compact the large gaussians to C_L slots with one [N] sort; their
     # per-gaussian data rides as two packed payload words (exact-cull
-    # attrs are re-read by lane gather on the compacted gid instead of
+    # attrs are re-read by a gather on the compacted gid instead of
     # riding as 5 more payload operands).
     iota = jnp.arange(N, dtype=jnp.int32)
     lkey = jnp.where(large, iota, _INT32_MAX)
@@ -566,8 +547,8 @@ def bin_gaussians(proj: Projected, H: int, W: int, tile_size: int,
         s_tile = jnp.where(invalid, num_tiles, s_key // C)
         s_rank = s_key % C
     else:
-        # lexicographic (tile, rank) two-operand sort (lane-dense [dup, C]
-        # layout — see _grid_counts)
+        # lexicographic (tile, rank) two-operand sort ([dup, C] layout —
+        # see _grid_counts)
         d = jnp.arange(MAX_DUP, dtype=jnp.int32)
         ddx = (d % per_axis)[:, None]
         ddy = (d // per_axis)[:, None]
@@ -607,7 +588,7 @@ def bin_gaussians_sharded(proj: Projected, H: int, W: int, tile_size: int,
 
     Each device sorts only its 1/n of the candidate keys (global tile ids),
     slices the per-band segments of its sorted stream (bands are contiguous
-    key ranges), routes them with ONE all_to_all over ICI, and merges the n
+    key ranges), routes them with ONE all_to_all, and merges the n
     received depth-ordered segments with a local sort.  Results are
     identical to the replicated `bin_gaussians` of the same band whenever
     nothing is dropped (tests enforce this); under per-pair route-capacity
@@ -707,7 +688,7 @@ def bin_gaussians_sharded(proj: Projected, H: int, W: int, tile_size: int,
     send = jnp.stack(segs)                              # [n, Q]
     send_drops = jnp.stack(drops)                       # [n]
 
-    # ---- ONE all_to_all over ICI routes every band's instances home ----
+    # ---- ONE all_to_all routes every band's instances home ----
     recv = jax.lax.all_to_all(send, axis_name, split_axis=0, concat_axis=0,
                               tiled=True)               # [n, Q]
     route_drops = jnp.sum(jax.lax.all_to_all(
@@ -892,7 +873,7 @@ def bin_gaussians_ring_origin(proj: Projected, full_h: int, full_w: int,
 # lands in range d, masked elsewhere), then compacts the received slots by a
 # rank sort — after which local row j IS global rank rank_base + j, so the
 # origin's emission grids, candidate sort, and pack all run on C/n rows.
-# The compaction gather's transpose would be a serial TPU scatter, so it is
+# The compaction gather's transpose would be a scatter, so it is
 # a custom-VJP row gather whose backward is ANOTHER row gather by the
 # inverse permutation (positions < Cs read the cotangent, the rest read a
 # zero pad row) — scatter-free both ways.
@@ -1195,9 +1176,8 @@ def _layout(s_tile, s_rank, order, inv_order, rank_counts, seg_start_gid,
     Shared by the replicated and the gauss-sharded binning paths.  Invalid
     (INT32_MAX-key) slots carry tile sentinel `num_tiles` and sort to the
     contiguous tail, so end[last] == n_live."""
-    # method="scan" (binary search): 2500 queries x ~21 rounds of scalar
-    # gathers is ~0.3 ms on chip; method="sort" re-sorts keys+queries and
-    # measured 20x slower at this query count.
+    # method="scan" (binary search): one query per tile against the sorted
+    # tile column.
     tids = jnp.arange(num_tiles, dtype=jnp.int32)
     end = jnp.searchsorted(s_tile, tids, side="right").astype(jnp.int32)
     start = jnp.concatenate([jnp.zeros((1,), jnp.int32), end[:-1]])
@@ -1229,84 +1209,60 @@ def _layout(s_tile, s_rank, order, inv_order, rank_counts, seg_start_gid,
 # Instance packing with a scatter-free hand-written VJP, in depth-rank space.
 #
 # Forward: attrs are re-sorted once into depth order and compacted by
-# `s_rank`, both as LANE gathers on a [16, *] layout, then relaid out as the
-# raster kernels' chunked [K//G, 16, G] stream.  There is no padded
-# expansion: tile starts are unaligned in the compact stream and the kernels
-# mask boundary-chunk lanes (a TPU [N,16] f32 array is physically lane-padded
-# to [N,128], so the old run-structured padded ROW gather moved ~700MB for
-# 64MB of payload; lane gathers run at full bandwidth).
+# `s_rank`, both as gathers along the instance axis of an attribute-major
+# [R, *] layout — the raster kernels' [R, K] stream, where each attribute row
+# of a block of instances is one contiguous load.
 #
-# Backward: XLA's automatic transpose of a gather is a scatter-add, which
-# lowers to a SERIAL loop on TPU, hence hand-written — and GATHER-FREE on
-# the megascale axis: a [K,16] row gather reads a ~4KB tile per row (~6.6ms
-# at K=2^20 measured), while payload operands on an XLA TPU sort are far
-# cheaper than gathers (though not free: sort cost grows with operand
-# count, so only the GRAD_ROWS differentiable rows ride).  The gradient
-# rows go through ONE (rank-key + GRAD_ROWS payload) sort as lane-dense
-# [K] vectors;
-# each rank's contributions are then contiguous runs of length <= max_seg
-# (the candidate-duplication bound), segment-summed by ceil(log2(max_seg))
-# masked Hillis-Steele passes, and read out at the analytically-known
-# segment starts (cumsum of rank counts, carried into gid space as sort
-# payload at binning time) with one [16,K] lane-gather — no transposes, no
-# full-length prefix scan, no prefix-difference cancellation.
+# Backward: XLA's automatic transpose of a gather is a scatter-add; this one
+# is written by hand as a permutation gather plus a bounded segmented scan.
+# The gradient rows are put in rank order by Binning's precomputed
+# permutation; each rank's contributions are then contiguous runs of length
+# <= max_seg (the candidate-duplication bound), segment-summed by
+# ceil(log2(max_seg)) masked Hillis-Steele passes, and read out at the
+# analytically-known segment starts (cumsum of rank counts, carried into gid
+# space as sort payload at binning time) — no full-length prefix scan, no
+# prefix-difference cancellation.
 # Boundaries are exact whenever n_dropped == 0; under capacity overflow the
 # dropped instances never rendered (zero true gradient) but the segment
 # boundaries shift, so gradients of overflowing scenes are approximate —
 # size max_instances to the scene (Binning.n_dropped is observable).
 # ---------------------------------------------------------------------------
 
-@partial(jax.custom_vjp, nondiff_argnums=(8, 9))
+@partial(jax.custom_vjp, nondiff_argnums=(8,))
 def pack_instances(attrs: jnp.ndarray, s_rank: jnp.ndarray,
                    rank_perm: jnp.ndarray, rank_key: jnp.ndarray,
                    seg_start_gid: jnp.ndarray, counts_gid: jnp.ndarray,
                    order: jnp.ndarray, n_live: jnp.ndarray,
-                   chunk: int, max_seg: int) -> jnp.ndarray:
-    """attrs [C, R] per-Gaussian attributes (R = STREAM_ROWS data rows, or
-    the legacy 16-row layout) -> inst [K//chunk, R, chunk] (the raster
-    kernels' chunk-major stream).  `max_seg` is the static per-Gaussian
+                   max_seg: int) -> jnp.ndarray:
+    """attrs [C, R] per-Gaussian attributes -> inst [R, K] (the raster
+    kernels' attribute-major stream).  `max_seg` is the static per-Gaussian
     duplication bound (binning per_axis**2); rank_perm/rank_key are
     Binning's precomputed rank-sorted stream permutation (the backward's
     sort, hoisted to binning time)."""
-    return _pack_run(attrs, s_rank, order, chunk)
+    return _pack_run(attrs, s_rank, order)
 
 
-def _pack_run(attrs, s_rank, order, G):
-    K = s_rank.shape[0]
-    R = attrs.shape[1]
-    # All gathers LANE-DENSE along a [R, *] layout: a [K,R] row gather
-    # reads a ~4KB lane-padded tile per row, while lane gathers run at
-    # full bandwidth; this also deletes the [K,R] -> [R,K] transpose.
+def _pack_run(attrs, s_rank, order):
     tab = jnp.take(attrs.T, order, axis=1)         # [R, C] depth order
-    compact = jnp.take(tab, s_rank, axis=1)        # [R, K]
-    # kernels index instances as [n_chunks, R, G]: the dynamically-indexed
-    # chunk dim must be the major (untiled) one for Mosaic
-    return compact.reshape(R, K // G, G).transpose(1, 0, 2)
+    return jnp.take(tab, s_rank, axis=1)           # [R, K]
 
 
 def _pack_fwd(attrs, s_rank, rank_perm, rank_key, seg_start_gid, counts_gid,
-              order, n_live, chunk, max_seg):
-    out = _pack_run(attrs, s_rank, order, chunk)
+              order, n_live, max_seg):
+    out = _pack_run(attrs, s_rank, order)
     return out, (rank_perm, rank_key, seg_start_gid, counts_gid, n_live)
 
 
-def _pack_bwd(chunk, max_seg, res, g):
+def _pack_bwd(max_seg, res, g):
     rank_perm, rank_key, seg_start_gid, counts_gid, n_live = res
     C = seg_start_gid.shape[0]
     K = rank_perm.shape[0]
-    # Lane-dense [GRAD_ROWS, K] gradient rows (one fused strided read of g)
-    # — only the differentiable rows: by contract the caller
-    # (rasterize_tiles) fills ROW_ONE and the rows above it with constants
-    # (ones / zero padding), so their cotangents are dead.  The rank-sorted
-    # order comes from Binning's PRECOMPUTED permutation as ONE lane gather
-    # (the former in-backward 11-operand sort cost ~2.3 ms; the 2-op
-    # permutation sort rides binning at ~0.8 ms and lane gathers run at
-    # full bandwidth).  Dead tail rows carry sentinel key C: they group at
-    # the back, only combine with each other in the masked passes, and the
-    # readout masks them.
-    R = g.shape[1]
-    rows = jnp.stack([g[:, r, :].reshape(K) for r in range(GRAD_ROWS)])
-    acc = jnp.take(rows, rank_perm, axis=1)        # [GRAD_ROWS, K]
+    R = g.shape[0]
+    # Rank order from Binning's precomputed permutation, as one gather.
+    # Dead tail rows carry sentinel key C: they group at the back, only
+    # combine with each other in the masked passes, and the readout masks
+    # them.
+    acc = jnp.take(g, rank_perm, axis=1)           # [R, K]
     skey = rank_key
     # Bounded segmented Hillis-Steele: after passes 1,2,..,2^(p-1) with
     # 2^p >= max_seg, acc[:, j] holds the sum of j's full segment whenever
@@ -1318,16 +1274,13 @@ def _pack_bwd(chunk, max_seg, res, g):
                                   jnp.full((sh,), -1, skey.dtype)])
         same = (kshift == skey)[None, :]
         vsh = jnp.concatenate(
-            [acc[:, sh:], jnp.zeros((GRAD_ROWS, sh), acc.dtype)], axis=1)
+            [acc[:, sh:], jnp.zeros((R, sh), acc.dtype)], axis=1)
         acc = acc + jnp.where(same, vsh, 0.0)
         sh *= 2
     sidx = jnp.clip(seg_start_gid, 0, K - 1)
-    dT = jnp.take(acc, sidx, axis=1)               # [GRAD_ROWS, C] lane gather
+    dT = jnp.take(acc, sidx, axis=1)               # [R, C]
     valid = (counts_gid > 0) & (seg_start_gid < n_live)
-    dT = jnp.where(valid[None, :], dT, 0.0)
-    # rows GRAD_ROWS.. (if any) are constants at the caller: zero cotangent
-    d_attrs = (dT.T if R == GRAD_ROWS else jnp.concatenate(
-        [dT.T, jnp.zeros((C, R - GRAD_ROWS), dT.dtype)], axis=1))
+    d_attrs = jnp.where(valid[None, :], dT, 0.0).T
     f0 = lambda shape: np.zeros(shape, jax_dtypes.float0)
     return (d_attrs, f0((K,)), f0((K,)), f0((K,)), f0((C,)), f0((C,)),
             f0((C,)), f0(()))

@@ -9,7 +9,7 @@ radius = 3*sqrt(lambda_max) clamped to [radius_min, radius_max]
 (renderer.py:186-192), and the cull predicate Z>0, -r<=x<W+r, -r<=y<H+r, r>0
 (renderer.py:201-220).
 
-TPU-first design: fully vectorized VPU math with *closed-form* 2x2 inverse and
+Design: fully vectorized elementwise math with *closed-form* 2x2 inverse and
 eigenvalues instead of batched `linalg.inv`/`eigvalsh`; culling is a mask (no
 compaction — static shapes); dead pool slots are masked out through `alive`.
 Everything here is differentiable and fuses under jit; the raster custom-VJP
@@ -62,7 +62,7 @@ def project_gaussians(g: Gaussians, camera: Camera, *,
     Rv, Tv = V[:3, :3], V[:3, 3]
 
     Xw = g.xyz
-    Xc = Xw @ Rv.T + Tv
+    Xc = jnp.matmul(Xw, Rv.T, precision=jax.lax.Precision.HIGHEST) + Tv
     X, Y, Z = Xc[:, 0], Xc[:, 1], Xc[:, 2]
 
     # Guard divides: behind-camera / dead points get Z=1 then are culled.
@@ -77,10 +77,9 @@ def project_gaussians(g: Gaussians, camera: Camera, *,
 
     # 3D covariance in camera frame: Sigma_cam = Rv Sigma Rv^T
     #                                          = (Rv R diag(s)) (Rv R diag(s))^T.
-    # Expanded per-component: batched [C,3,3] einsums lower to bf16-operand
-    # dots + layout copies on TPU (~8 ms/step at 193K slots in the trained
-    # trainer trace); the same math as 9+6 fused VPU elementwise chains
-    # never materializes a [C,3,3] array and keeps full f32.
+    # Expanded per-component: 9+6 fused elementwise chains never
+    # materialize a [C,3,3] array and keep full f32 (batched 3x3 einsums are
+    # the plain alternative; not compared on the GPU yet).
     sigma = g.get_scaling * scale_modifier
     s0, s1, s2 = sigma[:, 0], sigma[:, 1], sigma[:, 2]
     from ..core.transforms import quat_to_rotmat_components

@@ -1,8 +1,8 @@
 """Golden rasterizer: exact reference compositing semantics in pure jnp.
 
-This is the numerical oracle for the Pallas kernels (BASELINE.md requires the
-TPU kernels' forward image *and* pixel gradients to be allclose to it), and the
-fallback compute path (`use_pallas=False`).
+This is the numerical oracle for the raster kernels (BASELINE.md requires the
+kernels' forward image *and* pixel gradients to be allclose to it), and the
+plain-XLA compute path (`use_pallas=False`).
 
 Reference semantics: `/root/reference/src/core/renderer.py:300-362` — per
 pixel, in ascending-depth order: s = d^T Q d, w = clamp(exp(-0.5 s), 0, 1),
@@ -29,6 +29,9 @@ import jax.numpy as jnp
 
 EARLY_STOP_A = 0.995
 W_EPS = 1e-5
+# The oracle's f32 matmuls are pinned: a default f32 dot runs as TF32 on a
+# GPU, about three decimal digits.
+_HI = jax.lax.Precision.HIGHEST
 
 
 def composite_chunk(px: jnp.ndarray, py: jnp.ndarray,
@@ -117,9 +120,9 @@ def rasterize_pixels(px: jnp.ndarray, py: jnp.ndarray,
             cval = cval[None, :] & inside  # [P, G]
         contrib, T = composite_chunk(px, py, ck["x"], ck["y"], ck["qa"],
                                      ck["qb"], ck["qc"], ck["op"], cval, T)
-        rgb = rgb + contrib @ ck["col"]
+        rgb = rgb + jnp.matmul(contrib, ck["col"], precision=_HI)
         A = A + contrib.sum(-1)
-        D = D + contrib @ ck["dep"]
+        D = D + jnp.matmul(contrib, ck["dep"], precision=_HI)
         return (T, rgb, A, D), None
 
     P = px.shape[0]

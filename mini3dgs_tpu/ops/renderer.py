@@ -7,7 +7,8 @@ viewspace_points/visibility_filter/radii/conics).  Functional here: pure
 
 Two compute paths:
   * golden  — vectorized jnp (ops/raster_ref.py), XLA autodiff end to end.
-  * pallas  — tile binning + fused Pallas TPU kernels with a hand-written VJP
+  * pallas  — tile binning + Pallas (Triton) raster kernels with a
+              hand-written VJP
               (ops/binning.py, ops/raster_pallas.py).
 Both share the projection op and are validated against each other in tests.
 """
@@ -17,7 +18,7 @@ from __future__ import annotations
 from typing import Optional
 
 import jax.numpy as jnp
-from flax import struct
+from .. import struct
 
 from ..core.camera import Camera
 from ..core.gaussians import Gaussians
@@ -27,7 +28,7 @@ from .projection import project_gaussians
 
 @struct.dataclass
 class RenderSettings:
-    """Reference RenderSettings (renderer.py:13-20) + TPU kernel knobs."""
+    """Reference RenderSettings (renderer.py:13-20) + kernel path knobs."""
 
     image_height: int = struct.field(pytree_node=False, default=256)
     image_width: int = struct.field(pytree_node=False, default=256)
@@ -35,7 +36,7 @@ class RenderSettings:
         default_factory=lambda: jnp.zeros((3,), jnp.float32))
     scale_modifier: float = struct.field(pytree_node=False, default=1.0)
     debug: bool = struct.field(pytree_node=False, default=False)
-    # TPU knobs
+    # kernel path knobs
     tile_size: int = struct.field(pytree_node=False, default=16)
     radius_min: float = struct.field(pytree_node=False, default=0.01)
     radius_max: float = struct.field(pytree_node=False, default=50.0)
@@ -47,6 +48,7 @@ class RenderSettings:
     antialias: bool = struct.field(pytree_node=False, default=False)
     use_pallas: bool = struct.field(pytree_node=False, default=False)
     max_instances: int = struct.field(pytree_node=False, default=2 ** 18)
+    # the instance stream's padding granule: its length is a multiple of it
     gaussian_chunk: int = struct.field(pytree_node=False, default=256)
     # 0 = derive from radius_max (exact); >0 trades completeness of huge
     # splats for a (value/8)^2-smaller candidate sort (drops counted)
@@ -55,8 +57,7 @@ class RenderSettings:
     # pool; 0 = C/8.  Overflow drops are counted in binning n_dropped.
     large_capacity: int = struct.field(pytree_node=False, default=0)
     # Pixel-block width of the golden (XLA oracle) path's lax.map — smaller
-    # blocks bound the dense [pixels, chunk] autodiff working set (the
-    # full-size-golden baseline run needs this on small-HBM chips).
+    # blocks bound the dense [pixels, chunk] autodiff working set.
     golden_pixel_block: int = struct.field(pytree_node=False, default=65536)
     # Exact ellipse-vs-tile candidate culling at emission: output- and
     # gradient-identical (prunes only whole tiles below the reference's

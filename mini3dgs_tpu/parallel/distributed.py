@@ -1,12 +1,11 @@
-"""Multi-host / multi-slice initialization (SURVEY §7 stage 8).
+"""Multi-process initialization (SURVEY §7 stage 8).
 
-On a multi-host TPU slice every host runs the same program;
-`initialize_distributed()` wires jax.distributed so jax.devices() spans the
-full slice, and `make_global_mesh` lays out (data, tile) so that the `tile`
-axis (which carries the all_gather of image bands and the psum of per-Gaussian
-gradients every step) stays INSIDE a host's ICI domain, while the `data` axis
-(one psum of averaged gradients per step) crosses DCN — the
-bandwidth-hierarchy-aware layout.
+With several processes every process runs the same program;
+`initialize_distributed()` wires jax.distributed so jax.devices() spans all
+of them, and `make_global_mesh` lays out (data, tile) so that the `tile`
+axis (which carries the all_gather of image bands and the psum of
+per-Gaussian gradients every step) stays inside one host, while the `data`
+axis (one psum of averaged gradients per step) may cross hosts.
 
 Single-host meshes from `parallel.mesh.make_mesh` remain the default; nothing
 here is required on one host.
@@ -29,7 +28,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> None:
     """Idempotent jax.distributed.initialize with env fallbacks
-    (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID or TPU metadata).
+    (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID).  Nothing tells JAX
+    of a cluster on a plain GPU host: pass all three.
 
     NOTE: must run before ANY backend query — even jax.process_count()
     initializes the runtime and pins single-process mode (a guard built on
@@ -65,9 +65,9 @@ def make_global_mesh(data: Optional[int] = None,
                      tile: Optional[int] = None) -> Mesh:
     """(data, tile) mesh over all devices with tile kept host-local.
 
-    Default: tile = devices-per-host (ICI domain), data = number of hosts
-    (DCN domain).  jax orders jax.devices() host-major, so reshaping
-    [hosts, devices_per_host] aligns axes with the physical hierarchy.
+    Default: tile = devices per host, data = number of hosts.  jax orders
+    jax.devices() host-major, so reshaping [hosts, devices_per_host] keeps
+    each tile group on one host.
     """
     devices = np.asarray(jax.devices())
     n_local = jax.local_device_count()

@@ -1,16 +1,17 @@
 """Device mesh construction helpers.
 
 The reference has no distributed machinery at all (SURVEY §2.5); this package
-is the TPU-native parallelism layer: a (data, tile) mesh over ICI, with
-`shard_map` SPMD programs in `parallel/sharded.py`.
+is the parallelism layer: a (data, tile) mesh with `shard_map` SPMD programs
+in `parallel/sharded.py`.  The mesh follows the algorithm alone — the cards
+of one host are joined all to all (NVLink), so no axis order is preferred.
 
 Axes:
   * data — camera-batch parallelism (DP): each device trains a different view;
     per-Gaussian grads are averaged with `pmean`.
   * tile — image-band parallelism (the workload's sequence/context
     parallelism, SURVEY §2.5): each device rasterizes a horizontal band of
-    whole 16px tile rows; per-Gaussian grads are partial sums reduced with
-    `psum` over ICI.
+    whole tile rows; per-Gaussian grads are partial sums reduced over the
+    axis.
 """
 
 from __future__ import annotations

@@ -8,8 +8,8 @@ SURVEY §2.5).  Strategy mapping:
     horizontal bands of whole tile rows.  Each device projects the (replicated)
     Gaussians, bins and rasterizes only its band — band rendering is expressed
     by shifting means2d by the band origin, which is mathematically identical
-    to offsetting pixel coordinates, so the very same Pallas kernels run
-    unmodified.  Band images are all_gathered over ICI for the (global) SSIM
+    to offsetting pixel coordinates, so the very same raster kernels run
+    unmodified.  Band images are all_gathered for the (global) SSIM
     term; per-Gaussian gradients flow back through the gather transpose and
     are psum'd across bands.
 
@@ -43,7 +43,7 @@ def _project(g: Gaussians, camera: Camera, settings: RenderSettings,
              shard_axis: str = None, n_shards: int = 1):
     """EWA projection, optionally primitive-sharded (SURVEY §2.5 "TP"):
     device i projects only Gaussian slots [i*C/n, (i+1)*C/n) and the compact
-    projected set is reassembled with one all_gather over ICI.  Elementwise
+    projected set is reassembled with one all_gather.  Elementwise
     math is identical per slot, so results are bitwise equal to the
     replicated projection; the all_gather transpose reduce-scatters
     per-Gaussian gradients back to their owners in backward."""
@@ -174,7 +174,7 @@ def make_sharded_train_step(config: TrainingConfig, settings: RenderSettings,
             if exposure is not None:
                 from ..train.exposure import apply_exposure
                 image = apply_exposure(exposure[ci], image)
-            # Banded loss with 5-row SSIM halo exchange over ICI — exact
+            # Banded loss with 5-row SSIM halo exchange — exact
             # global L1 + D-SSIM without gathering the full image
             # (core/loss.py: gaussian_loss_banded).
             band_target = jax.lax.dynamic_slice(
@@ -311,11 +311,12 @@ def make_sharded_render(settings: RenderSettings, mesh: Mesh) -> Callable:
 # ---------------------------------------------------------------------------
 # Gauss-axis sharded model + optimizer state (SURVEY §2.5 "TP").
 #
-# The replicated-state step above caps scene size at one device's HBM.  Here
+# The replicated-state step above caps scene size at one device's memory.
+# Here
 # every [C,...] leaf of the TrainState — Gaussian parameters, alive mask,
 # densify stat buffers, AND Adam moments — is sharded over the flattened
 # (data, tile) mesh axes, so per-device state memory is C/n_devices.  Each
-# device projects only its own slots; ONE all_gather over ICI reassembles the
+# device projects only its own slots; ONE all_gather reassembles the
 # compact projected stream (~16 floats/gaussian — far smaller than the ~59
 # floats of raw parameters+moments); its transpose reduce-scatters per-slot
 # gradients straight back to their owners, where the Adam update runs on the

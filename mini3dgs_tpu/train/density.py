@@ -14,7 +14,7 @@ and `src/core/optimizer.py:34-88`):
   * cadence (optimizer.py:39-41): densify_from_iter <= it <= densify_until_iter
     and it % densify_interval == 0.
 
-TPU-first redesign: the reference's concat/boolean-index reparameterization
+Redesign: the reference's concat/boolean-index reparameterization
 changes array shapes; here everything is a masked scatter into free slots of
 the fixed-capacity pool, so the whole operation jit-compiles once.  Children
 that exceed capacity are dropped (tracked via the returned count).

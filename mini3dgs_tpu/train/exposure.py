@@ -16,6 +16,7 @@ learned exposure).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -28,5 +29,6 @@ def init_exposure(n_cameras: int) -> jnp.ndarray:
 
 def apply_exposure(M: jnp.ndarray, image: jnp.ndarray) -> jnp.ndarray:
     """Apply one [3,4] affine color transform to a [3,H,W] image."""
-    return (jnp.einsum("ij,jhw->ihw", M[:, :3], image)
+    return (jnp.einsum("ij,jhw->ihw", M[:, :3], image,
+                       precision=jax.lax.Precision.HIGHEST)
             + M[:, 3][:, None, None])

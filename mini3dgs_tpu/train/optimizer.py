@@ -6,7 +6,7 @@ Reference semantics: `/root/reference/src/core/optimizer.py` —
 scaling / rotation, optimizer.py:100-109) whose LRs all follow the scheduled
 position LR scaled by their configured ratios (optimizer.py:120-129).
 
-TPU-first redesign: a single optax transformation over the parameter pytree —
+Redesign: a single optax transformation over the parameter pytree —
 scale_by_adam, then a per-leaf static LR, then one shared schedule factor
 sched(t)/position_lr_init (algebraically identical to the reference's
 update_learning_rate).  After densification the reference throws away all Adam

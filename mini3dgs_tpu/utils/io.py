@@ -15,16 +15,22 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-try:
-    from PIL import Image
-    HAS_PIL = True
-except ImportError:  # pragma: no cover
-    HAS_PIL = False
+
+def _pil_image():
+    """PIL's Image module, imported on first use: only the on-disk image
+    datasets and image export need it (an optional extra)."""
+    try:
+        from PIL import Image
+    except ImportError:  # pragma: no cover
+        return None
+    return Image
 
 
 def save_image(image, path: str) -> None:
-    """image: [3,H,W] float in [0,1] (host or device array)."""
-    if not HAS_PIL:
+    """image: [3,H,W] float in [0,1] (host or device array).  A no-op
+    without PIL."""
+    Image = _pil_image()
+    if Image is None:
         return
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     arr = np.asarray(image)
@@ -37,7 +43,8 @@ def load_image(path: str, bg: float = 1.0) -> np.ndarray:
     (scalar or [3]); default white follows the NeRF-synthetic convention, and
     datasets with `white_background=False` pass bg=0.0 so GT stays consistent
     with a black render background."""
-    if not HAS_PIL:
+    Image = _pil_image()
+    if Image is None:
         raise ImportError("PIL required for load_image")
     img = np.asarray(Image.open(path)).astype(np.float32) / 255.0
     if img.ndim == 2:

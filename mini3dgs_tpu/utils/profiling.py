@@ -3,7 +3,7 @@
 The reference declares tensorboard/tqdm as dependencies but never uses them;
 here we provide real observability: `jax.profiler` trace capture, simple wall
 timers, and roofline-style throughput counters for the raster pipeline
-(pixels/s, gaussians/s, instances/s vs HBM bandwidth).
+(pixels/s, gaussians/s, instances/s).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import jax
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/mini3dgs_trace"):
+def trace(log_dir: str = "output/trace"):
     """Capture a jax.profiler trace viewable in TensorBoard/Perfetto."""
     Path(log_dir).mkdir(parents=True, exist_ok=True)
     jax.profiler.start_trace(log_dir)
@@ -51,9 +51,6 @@ class ThroughputCounters:
     gaussians: int = 0
     instances: int = 0
     seconds: float = 0.0
-    # v5e reference numbers (per chip)
-    hbm_bw_gbs: float = 819.0
-    peak_tflops_bf16: float = 394.0
 
     def report(self) -> Dict[str, float]:
         s = max(self.seconds, 1e-9)

@@ -1,10 +1,10 @@
-"""BASELINE #4 single-chip proxy: a REAL optimization run at >= 1M Gaussians.
+"""BASELINE #4 single-card proxy: a REAL optimization run at >= 1M Gaussians.
 
 The reference's eager unbounded-N model
 (`/root/reference/src/core/gaussian_model.py:15-31`) cannot approach this
 scale; here a 2^20-slot pool seeded with 1M analytic surface samples of the
 procedural SDF scene trains the full L1+D-SSIM / 5-group-Adam step (densify
-off — the pool starts full) at 800^2 on one chip, recording steady-state
+off — the pool starts full) at 800^2 on one card, recording steady-state
 it/s and device-memory headroom.
 
 Usage:  python scripts/train_1m.py [--iters 500] [--scene data/sdf_scene]

@@ -1,7 +1,7 @@
-"""On-chip end-to-end training probe: random-init Gaussians fit a target
+"""End-to-end training probe on a GPU: random-init Gaussians fit a target
 image with the FULL training machinery — L1+D-SSIM loss, 5-group Adam with
 cosine LR, densify/clone/prune cadence, opacity reset, occupancy-triggered
-capacity growth — on real TPU hardware.  Prints the PSNR trajectory and
+capacity growth.  Prints the PSNR trajectory and
 steps/s (the CPU smoke config exercises the same path at toy scale)."""
 
 import sys
@@ -16,7 +16,7 @@ import numpy as np
 
 
 def main(steps=1200, width=256, height=256):
-    from __graft_entry__ import _scene
+    from mini3dgs_tpu.checks import population
     from mini3dgs_tpu.config import TrainingConfig
     from mini3dgs_tpu.core.gaussians import create_from_random
     from mini3dgs_tpu.ops.renderer import RenderSettings, render
@@ -24,8 +24,7 @@ def main(steps=1200, width=256, height=256):
     from mini3dgs_tpu.utils.metrics import psnr
 
     # Target: a render of a rich random scene (8K anisotropic gaussians).
-    gt, cam = _scene(capacity=2 ** 13, n=8000, width=width, height=height,
-                     seed=23)
+    gt, cam = population(2 ** 13, 8000, width, height, seed=23)
     gt = gt.replace(scaling=gt.scaling
                     + jnp.asarray(np.array([0.3, 0.0, -0.4], np.float32)))
     st_t = RenderSettings(image_height=height, image_width=width,

@@ -50,7 +50,7 @@ rendering:
 loss:
   lambda_dssim: 0.5
 system:
-  device: "tpu"
+  device: "gpu"
 """
     p = tmp_path / "cfg.yaml"
     p.write_text(yaml_text)

@@ -6,7 +6,7 @@ The cull's safety property: a candidate tile removed by `_exact_tile_keep`
 must contain NO pixel whose kernel-computed weight reaches the reference's
 skip cutoff (w >= W_EPS = 1e-5, raster_ref.py) — otherwise cull on/off
 changes output.  The fuzz evaluates the KERNEL'S OWN f32 alpha formula
-(raster_pallas._chunk_alpha: lw = dx*dx*(-.5qa) + dx*dy*(-qb) + dy*dy*(-.5qc),
+(raster_pallas._block_alpha: lw = dx*dx*(-.5qa) + dx*dy*(-qb) + dy*dy*(-.5qc),
 w = min(exp(lw), 1)) at every pixel of every culled tile, for thousands of
 random conics swept across extreme conditioning — eccentricities to 1e3,
 near-degenerate determinants, random rotation — the regime where the
@@ -56,7 +56,7 @@ def _random_conics(rng, n):
 
 def _kernel_w_max_per_tile(mx, my, qa, qb, qc):
     """Max of the kernels' f32 weight over each tile's pixels, [n, T, T].
-    Mirrors raster_pallas._chunk_alpha arithmetic: pre-scaled conic rows,
+    Mirrors raster_pallas._block_alpha arithmetic: pre-scaled conic rows,
     f32 throughout, w = min(exp(lw), 1)."""
     n = mx.shape[0]
     px = np.arange(TILES * TILE, dtype=np.float32)

@@ -1,13 +1,12 @@
 """True multi-process SPMD test (VERDICT: "multi-host path exercised only by
 construction").  Two OS processes, each with 4 virtual CPU devices, wired by
-jax.distributed into one 8-device runtime; the DCN-aware global mesh (data
+jax.distributed into one 8-device runtime; the host-aware global mesh (data
 axis = processes, tile axis = per-host devices) runs the replicated-state
 sharded train step with cross-process collectives, and both processes must
 agree with the single-process oracle bit-for-tolerance.
 
-This is the CPU stand-in for a 2-host TPU slice: same jax.distributed wiring,
-same mesh layout, same collectives — only the transport differs (gloo vs
-ICI/DCN).
+This is the CPU stand-in for two hosts: same jax.distributed wiring, same
+mesh layout, same collectives — only the transport differs (gloo here).
 """
 
 import os

@@ -1,6 +1,7 @@
-"""Pallas raster kernel vs golden renderer: forward images AND pixel
-gradients must be allclose (BASELINE.md correctness gate).  Runs in Pallas
-interpret mode on CPU (SURVEY §4(c)); the same code compiles for TPU."""
+"""Raster kernels vs golden renderer: forward images AND pixel gradients
+must be allclose (BASELINE.md correctness gate).  Runs in Pallas interpret
+mode on CPU (SURVEY §4(c)); the same kernels compile through Triton on a
+GPU (tests/test_gpu.py, chip_smoke.py)."""
 
 import math
 
@@ -117,11 +118,9 @@ def test_pallas_gradients_match_golden():
         b = np.asarray(grads_g[name])
         scale = np.abs(b).max() + 1e-8
         # 1e-3 normalized: float32 association noise — the kernel groups a
-        # tile's instances into chunks at unaligned stream boundaries, so
-        # the per-chunk transmittance scans and the pack backward's segment
-        # prefix-differences round differently than the golden autodiff
-        # (measured: error moves non-monotonically with chunk size G, and
-        # the pack VJP alone matches autodiff to ~5e-7 relative).
+        # tile's instances into blocks, so its transmittance scans and the
+        # pack backward's segment sums round differently than the golden
+        # autodiff.
         np.testing.assert_allclose(a / scale, b / scale, atol=1e-3,
                                    err_msg=name)
 
@@ -200,11 +199,11 @@ def test_overflow_gradients_finite():
     approximate (documented in pack_instances) but must stay FINITE — the
     count-derived segment boundaries may reach d_inst tail chunks the kernel
     never wrote, which the pack backward hard-masks."""
-    from __graft_entry__ import _scene
+    from mini3dgs_tpu.checks import population
     from mini3dgs_tpu.ops import binning
     from mini3dgs_tpu.ops.projection import project_gaussians
 
-    g, cam = _scene(capacity=512, n=400, width=64, height=64)
+    g, cam = population(512, 400, 64, 64)
     st = RenderSettings(image_height=64, image_width=64, use_pallas=True,
                         max_instances=128, gaussian_chunk=32)
     b = binning.bin_gaussians(project_gaussians(g, cam), 64, 64, 16, 128, 32)
@@ -429,36 +428,3 @@ def test_exact_tile_cull_prunes_and_matches_golden():
         denom = np.abs(a).max() + 1e-8
         np.testing.assert_allclose(b / denom, a / denom, atol=1e-3,
                                    err_msg=f)
-
-
-def test_wide_stream_toggle_bitwise():
-    """The legacy 16-row gathered stream (WIDE_STREAM, the ab_t0 A/B
-    toggle) and the default 10-row-gather + broadcast-concat widening must
-    produce BITWISE identical images and gradients — same kernel, same
-    values in every stream row, only the pack work differs."""
-    import mini3dgs_tpu.ops.raster_pallas as RP
-    cam = identity_camera(64, 64)
-    gs = rotated_scene(48)
-    target = jnp.linspace(0, 1, 3 * 64 * 64).reshape(3, 64, 64)
-    st = RenderSettings(image_height=64, image_width=64, use_pallas=True,
-                        max_instances=8192, gaussian_chunk=32)
-
-    def run():
-        def loss(p):
-            out = render(gs.with_params(p), cam, st)
-            return jnp.abs(out["image"] - target).mean(), out["image"]
-        (l, img), g = jax.value_and_grad(loss, has_aux=True)(gs.params())
-        return np.asarray(img), {k: np.asarray(v) for k, v in g.items()}
-
-    try:
-        RP.WIDE_STREAM = False
-        img_a, g_a = run()
-        RP.WIDE_STREAM = True
-        RP._make_raster_op.cache_clear()
-        img_b, g_b = run()
-    finally:
-        RP.WIDE_STREAM = False
-        RP._make_raster_op.cache_clear()
-    np.testing.assert_array_equal(img_a, img_b)
-    for k in g_a:
-        np.testing.assert_array_equal(g_a[k], g_b[k], err_msg=k)

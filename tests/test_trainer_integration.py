@@ -295,9 +295,8 @@ def test_auto_stream_sizing_shrinks_when_oversized(tmp_path):
 
 def test_auto_stream_initial_probe(tmp_path):
     """One probe render at train() start must size the stream to the scene
-    immediately (round-5 trace: a hand-sized stream costs 6x the step in
-    stream-length-proportional work; the shrink hysteresis alone would pay
-    that tax for ~800 steps first)."""
+    immediately (pack/sort work is proportional to the stream length; the
+    shrink hysteresis alone would pay that tax for ~800 steps first)."""
     t = _pallas_trainer(tmp_path, max_instances=1 << 18)
     t.train(iterations=1)
     assert t.settings.max_instances == max(1 << 16, 4 * 32)
